@@ -1,4 +1,4 @@
-"""Exact graph alignment on the MXU (hot loop #4).
+"""Exact graph alignment as a batched match volume (hot loop #4).
 
 Reference: GrootGraph.AlignRead (/root/reference/src/graph/alignment.go) runs
 a hierarchical cascade per (read, seed-mapping):
@@ -14,7 +14,7 @@ processTraversal assigns the path IDs present in EVERY node of a successful
 traversal (alignment.go:263-317). The fwd/RC orientation loop wraps the
 cascade per mapping (graphminion.go:74-98).
 
-TPU-native reformulation (no recursion): for the block-structured DAGs groot
+Batched reformulation (no recursion): for the block-structured DAGs groot
 builds from MSAs, a DFS traversal whose nodes all belong to path p is exactly
 a contiguous segment of p's linear sequence. So alignment against the graph
 reduces to exact matching against the padded PATH matrix, and the whole
@@ -22,7 +22,7 @@ cascade becomes lookups into a precomputed boolean match volume
 
     M[r, p, o] = read r matches path p starting at offset o
 
-computed for a whole read batch in ONE MXU cross-correlation:
+computed for a whole read batch in ONE cross-correlation (a matmul):
 
     count[r, p, o] = sum_j onehot5(read)[r, j, :] . onehot5(path)[p, o+j, :]
     M = (count == effective_read_len)
@@ -176,7 +176,7 @@ class GraphAligner:
         RC); the first successful mapping wins and later mappings are neither
         weighted nor aligned.
 
-        One MXU correlation covers every read x orientation x clip-variant;
+        One correlation covers every read x orientation x clip-variant;
         the cascade itself is host bit tests."""
         gp = self.pack(graph)
         bits = self._batch_match_bits(gp, [it[0] for it in items])

@@ -1,7 +1,7 @@
 """Flat (struct-of-arrays) window tables for the batched align path.
 
 The reference streams one read at a time through Go maps of `lshe.Key`
-records (src/lshe/lshe.go:17-28, boss.go:163-191). The batched TPU pipeline
+records (src/lshe/lshe.go:17-28, boss.go:163-191). The batched pipeline
 instead touches ~10^5 (read, window) hits per batch, so per-hit Python/dict
 work is the throughput ceiling.  This module flattens every per-window
 payload into numpy arrays once, after index load; per batch everything is
@@ -146,7 +146,7 @@ def csr_expand(ptr: np.ndarray, cnt: np.ndarray, sel: np.ndarray):
 
 
 class WeightAccumulator:
-    """Global node k-mer tallies + per-graph kmer totals (the TPU-side
+    """Global node k-mer tallies + per-graph kmer totals (the batched
     equivalent of node.KmerFreq updates under minion ownership,
     graphminion.go:67 / graph.go:437-449)."""
 

@@ -6,8 +6,8 @@ read variant (fwd/RC x full/clip-start/clip-end, MaxClip=1) against graph
 paths at seed-derived positions; graphminion.go:46-102 tries a read's
 mappings in order and keeps the first success per graph.
 
-Previous engines (align.aligner, align.device_cascade) brute-force a match
-volume over EVERY (path, position) with an MXU cross-correlation — ~3000x
+The previous engine (align.aligner) brute-forces a match volume over
+EVERY (path, position) with a cross-correlation — ~3000x
 more positions than the cascade's probe set ever reads. v5 inverts the
 lookup: exact matching is substring search, so candidate positions come from
 an O(log N) hash join instead of an O(N*Lr) scan:
@@ -76,8 +76,8 @@ def _index_fingerprint(index, k: int) -> np.ndarray:
 class NumpyGraphAligner(GraphAligner):
     """GraphAligner with the match volumes computed in numpy instead of an
     XLA conv — the fallback engine for wildcard graphs must not trigger
-    device compiles (each distinct conv shape is a fresh, slow XLA compile
-    on TPU; the fallback set is tiny so numpy is instant)."""
+    device compiles (each distinct conv shape is a fresh XLA compile; the
+    fallback set is tiny so numpy is instant)."""
 
     def _batch_match_bits(self, gp: _GraphPack, reads):
         R = len(reads)

@@ -5,7 +5,7 @@ GrootGraph.RunEM/ProcessEMpaths (/root/reference/src/graph/paths.go:32-98):
 equivalence classes are graph nodes; each ec's member set is the node's
 path IDs and its count is KmerFreq / len(sequence).
 
-TPU-native form: the per-ec loops become two matmuls per iteration over a
+Batched form: the per-ec loops become two matmuls per iteration over a
 dense membership matrix M [E, P]:
 
     denom      = M @ alpha                      (masked where count==0 or
@@ -14,7 +14,9 @@ dense membership matrix M [E, P]:
 
 run under jax.lax.while_loop with the reference's convergence rule
 (no path with alpha > 1e-2 changing by > 1% after min_iterations, then one
-final round after zeroing alphas < 1e-8; em.go:60-150).
+final round after zeroing alphas < 1e-8; em.go:60-150). The products run
+at HIGHEST precision: a float32 matmul may otherwise run in TF32 on a GPU.
+``run_em_batched_np`` is the float64 NumPy reference of the batched loop.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ TOLERANCE = np.nextafter(1.0, 2.0) - 1.0  # em.go:11
 ALPHA_LIMIT = 1e-7
 ALPHA_CHANGE = 1e-2
 ALPHA_CHANGE_LIMIT = 1e-2
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @partial(jax.jit, static_argnames=("min_iterations", "max_iterations"))
@@ -40,10 +43,10 @@ def _run_em(membership, counts, min_iterations: int, max_iterations: int):
     alpha0 = jnp.full((P,), 1.0 / P, dtype=jnp.float32)
 
     def update(alpha):
-        denom = m @ alpha  # [E]
+        denom = jnp.matmul(m, alpha, precision=HIGHEST)  # [E]
         valid = (counts != 0) & (denom >= TOLERANCE)
         count_norm = jnp.where(valid, counts / jnp.maximum(denom, TOLERANCE), 0.0)
-        return alpha * (count_norm @ m)  # [P]
+        return alpha * jnp.matmul(count_norm, m, precision=HIGHEST)  # [P]
 
     def body(state):
         it, alpha, alpha_b4, final_round, done = state
@@ -173,10 +176,10 @@ def _run_em_batched(
     alpha0 = jnp.where(lanes[None, :] < n_paths[:, None], 1.0 / np_f[:, None], 0.0)
 
     def update(alpha):
-        denom = jnp.einsum("gep,gp->ge", m, alpha)
+        denom = jnp.einsum("gep,gp->ge", m, alpha, precision=HIGHEST)
         valid = (counts != 0) & (denom >= TOLERANCE)
         cn = jnp.where(valid, counts / jnp.maximum(denom, TOLERANCE), 0.0)
-        return alpha * jnp.einsum("ge,gep->gp", cn, m)
+        return alpha * jnp.einsum("ge,gep->gp", cn, m, precision=HIGHEST)
 
     def body(state):
         it, alpha, alpha_b4, final_round, done = state
@@ -217,17 +220,44 @@ def _run_em_batched(
     return it, alpha, alpha_b4
 
 
-def run_em_on_graphs(graphs, min_iterations: int, num_iterations: int) -> None:
-    """RunEM over many graphs as one padded jit call; equivalent to
-    run_em_on_graph per graph (the reference runs one goroutine per graph,
-    haplotype.go:95-119 — here the graph axis is a batch dimension)."""
-    if num_iterations < min_iterations:
-        raise ValueError(
-            f"number of EM iterations ({num_iterations}) must be greater "
-            f"than minimum iterations ({min_iterations})"
-        )
-    if not graphs:
-        return
+def run_em_batched_np(membership, counts, n_paths, min_iterations: int,
+                      max_iterations: int):
+    """float64 NumPy reference of _run_em_batched: the same update rule and
+    per-graph convergence flags, one graph lane at a time. Returns
+    (iterations [G], alpha [G, P])."""
+    membership = np.asarray(membership, np.float64)
+    counts = np.asarray(counts, np.float64)
+    G, E, P = membership.shape
+    its = np.zeros(G, np.int64)
+    out = np.zeros((G, P), np.float64)
+    for g in range(G):
+        m, c, n = membership[g], counts[g], int(n_paths[g])
+        alpha = np.where(np.arange(P) < n, 1.0 / max(n, 1), 0.0)
+        it, final_round = 0, False
+        while it < max_iterations:
+            denom = m @ alpha
+            valid = (c != 0) & (denom >= TOLERANCE)
+            cn = np.where(valid, c / np.maximum(denom, TOLERANCE), 0.0)
+            na = alpha * (cn @ m)
+            it += 1
+            if final_round:
+                alpha = na
+                break
+            changed = (
+                (na > ALPHA_CHANGE_LIMIT)
+                & (np.abs(na - alpha) / np.maximum(na, 1e-30) > ALPHA_CHANGE)
+            ).any()
+            if not changed and it - 1 > min_iterations:
+                final_round = True
+                na = np.where(na < ALPHA_LIMIT / 10.0, 0.0, na)
+            alpha = na
+        its[g], out[g] = it, alpha
+    return its, out
+
+
+def em_inputs(graphs):
+    """Padded batched-EM inputs over `graphs`: (membership f32 [G, E, P],
+    counts f32 [G, E], n_paths i32 [G], per-graph sorted path ids)."""
     metas = []
     for graph in graphs:
         ec_nodes = []
@@ -254,6 +284,21 @@ def run_em_on_graphs(graphs, min_iterations: int, num_iterations: int) -> None:
             for pid in node.path_ids:
                 membership[g, e, dense[pid]] = 1.0
             counts[g, e] = node.kmer_freq / len(node.sequence)
+    return membership, counts, n_paths, [p for _, _, p in metas]
+
+
+def run_em_on_graphs(graphs, min_iterations: int, num_iterations: int) -> None:
+    """RunEM over many graphs as one padded jit call; equivalent to
+    run_em_on_graph per graph (the reference runs one goroutine per graph,
+    haplotype.go:95-119 — here the graph axis is a batch dimension)."""
+    if num_iterations < min_iterations:
+        raise ValueError(
+            f"number of EM iterations ({num_iterations}) must be greater "
+            f"than minimum iterations ({min_iterations})"
+        )
+    if not graphs:
+        return
+    membership, counts, n_paths, path_lists = em_inputs(graphs)
     it, alpha, _alpha_b4 = _run_em_batched(
         jnp.asarray(membership),
         jnp.asarray(counts),
@@ -263,7 +308,7 @@ def run_em_on_graphs(graphs, min_iterations: int, num_iterations: int) -> None:
     )
     it = np.asarray(it)
     alpha = np.asarray(alpha, dtype=np.float64)
-    for g, (graph, _ec, path_ids) in enumerate(metas):
+    for g, (graph, path_ids) in enumerate(zip(graphs, path_lists)):
         graph.em_iterations = int(it[g])
         graph.alpha = {
             pid: float(alpha[g, i]) for i, pid in enumerate(path_ids)

@@ -9,7 +9,7 @@ Here those arrays are first-class: per graph we build
   offsets  i32 [P, Lmax]   per-base offset within the segment
   lengths  i32 [P]         ungapped path lengths
 
-which feed the windowed sketching kernel (index) and the MXU alignment
+which feed the windowed sketching kernel (index) and the alignment
 correlator (align). Padding uses code 4 (N, seed 0) — validity is always
 masked by `lengths`.
 """

@@ -27,15 +27,21 @@ _U8P = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 
 
 def _build() -> bool:
+    """Run make under an exclusive lock: processes that start together
+    (parallel test workers) compile once, the rest find it fresh."""
+    import fcntl
+
     try:
-        subprocess.run(
-            ["make", "-s", "-C", os.path.abspath(_NATIVE_DIR)],
-            check=True,
-            capture_output=True,
-        )
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lk:
+            fcntl.flock(lk, fcntl.LOCK_EX)
+            subprocess.run(
+                ["make", "-s", "-C", os.path.abspath(_NATIVE_DIR)],
+                check=True,
+                capture_output=True,
+            )
         return os.path.exists(_LIB_PATH)
     except Exception as e:  # pragma: no cover
-        log.debug("native build failed: %s", e)
+        log.warning("native build failed: %s", e)
         return False
 
 
@@ -44,8 +50,8 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    # always run make: a no-op when the committed .so is fresh (~20ms), a
-    # rebuild when grootio.cpp is newer (a stale binary would silently
+    # always run make: the library is built from source on first use, and
+    # rebuilt when grootio.cpp is newer (a stale binary would silently
     # serve old code)
     if not _build() and not os.path.exists(_LIB_PATH):
         return None
@@ -214,6 +220,8 @@ def _load() -> Optional[ctypes.CDLL]:
             _LP, _LP, _U8P,
             _U8P,
         ]
+        lib.gio_deflate_lib.restype = ctypes.c_char_p
+        lib.gio_deflate_lib.argtypes = []
         _lib = lib
     except (OSError, AttributeError) as e:  # pragma: no cover
         # AttributeError: a stale .so missing a newly-added symbol (e.g.
@@ -225,6 +233,13 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def deflate_lib() -> Optional[str]:
+    """The deflate library the native build links ("libdeflate" or
+    "zlib"), or None without the native library."""
+    lib = _load()
+    return None if lib is None else lib.gio_deflate_lib().decode()
 
 
 def _buf_ptr(buf):

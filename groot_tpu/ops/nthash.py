@@ -1,4 +1,4 @@
-"""ntHash: canonical rolling DNA k-mer hashing, vectorised for TPU.
+"""ntHash: canonical rolling DNA k-mer hashing, vectorised for the device.
 
 Re-implements the hashing used by the reference's sketching layer
 (will-rowe/nthash, called from /root/reference/src/minhash/khf.go:38-44 and
@@ -14,7 +14,7 @@ load-bearing: the RC-pair sketch property test in the reference
 (src/minhash/minhash_test.go:139-156) and the fwd/RC alignment attempts
 (src/pipeline/graphminion.go:74-76) both rely on it.
 
-TPU-native formulation: instead of the sequential rolling recurrence, we use
+Vectorised formulation: instead of the sequential rolling recurrence, we use
 the rotate-normalised prefix-XOR identity
 
   f(i) = rol( X[i+k] ^ X[i], (k-1+i) mod 64 ),  X = prefix-xor of

@@ -1,7 +1,7 @@
-"""64-bit unsigned integer arithmetic as uint32 pairs, for TPU.
+"""64-bit unsigned integer arithmetic as uint32 pairs.
 
-TPUs have no native 64-bit integer datapath and enabling jax x64 globally is
-both unnecessary and slow (XLA emulates i64 with i32 pairs anyway). All hash
+JAX's 64-bit integers need the process-wide x64 flag, which would change the
+default dtype of every array in the process. All hash
 values in groot_tpu device code are therefore explicit ``(hi, lo)`` pairs of
 ``uint32`` arrays. This module provides the handful of 64-bit ops the ntHash /
 MinHash / LSH pipeline needs: xor, rotate, shift, multiply (mod 2**64),

@@ -1,11 +1,11 @@
 """Device-resident containment index + fused align step.
 
 This is the multi-chip data plane (SURVEY §2.3): the LSH band tables, window
-sketches and window->node weighting coefficients live in HBM as dense arrays
+sketches and window->node weighting coefficients live in device memory as dense arrays
 (replicated per device — the full CARD/resfinder indexes are tens of MB);
 read batches shard over the mesh's data axis; per-graph k-mer tallies are
 scatter-adds into a global node-weight vector merged with a psum — the
-TPU-native equivalent of the reference's mutex-guarded counters and
+batched equivalent of the reference's mutex-guarded counters and
 single-writer-per-graph minion discipline (boss.go:28, graphminion.go:67).
 """
 
@@ -311,11 +311,7 @@ def make_sharded_align_step(
     mesh: Mesh, dev: DeviceIndex, threshold: float, axis: str = "data"
 ):
     """shard_map the align step over the mesh data axis: index replicated,
-    reads sharded, tallies merged with psum over ICI."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
+    reads sharded, tallies merged with a psum across devices."""
 
     def build(full_eq: bool):
         kwargs = dict(
@@ -334,7 +330,7 @@ def make_sharded_align_step(
             win, con, nw, gk, mapped, dropped = align_step(
                 tree, codes, lengths, **kwargs
             )
-            # merge tallies across the data axis (ICI allreduce)
+            # merge tallies across the data axis (allreduce)
             nw = jax.lax.psum(nw, axis)
             gk = jax.lax.psum(gk, axis)
             dropped = jax.lax.psum(dropped, axis)
@@ -342,21 +338,12 @@ def make_sharded_align_step(
 
         rep = P()
         shard = P(axis)
-        try:
-            sm = shard_map(
-                local_step,
-                mesh=mesh,
-                in_specs=(rep, shard, shard),
-                out_specs=(shard, shard, rep, rep, shard, rep),
-            )
-        except TypeError:  # older API: check_rep for psum-into-replicated
-            sm = shard_map(
-                local_step,
-                mesh=mesh,
-                in_specs=(rep, shard, shard),
-                out_specs=(shard, shard, rep, rep, shard, rep),
-                check_rep=False,
-            )
+        sm = jax.shard_map(
+            local_step,
+            mesh=mesh,
+            in_specs=(rep, shard, shard),
+            out_specs=(shard, shard, rep, rep, shard, rep),
+        )
         return jax.jit(sm)
 
     steps: Dict[bool, object] = {}

@@ -3,8 +3,9 @@
 The scale-out plan (SURVEY §2.3 / §5): replicate the LSH index + traversal
 matrices per device (small — hundreds of graphs of 1-2 kb genes), shard FASTQ
 read batches over a 1-D "data" mesh axis, and allreduce (psum) the per-graph
-k-mer tallies and mapped-read counters before prune/EM. Collectives ride ICI
-within a slice; nothing here assumes a fixed device count.
+k-mer tallies and mapped-read counters before prune/EM. The mesh is one flat
+axis, which suits cards joined all to all (NVLink); nothing here assumes a
+fixed device count.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 //
 // The reference's data loader is compiled Go (bufio scanners feeding
 // channels, /root/reference/src/pipeline/sketch.go:41-238). Python-level
-// line loops cap ingest well below TPU align throughput, so the hot host
+// line loops cap ingest well below device align throughput, so the hot host
 // paths live here:
 //
 //   gio_parse_fastq  - scan a FASTQ buffer into per-record offsets
@@ -600,6 +600,15 @@ extern "C" long gio_gunzip(
 #else
     (void)in; (void)in_len; (void)out; (void)out_cap;
     return -1;
+#endif
+}
+
+// Name of the deflate library this build links ("libdeflate" or "zlib").
+extern "C" const char* gio_deflate_lib() {
+#ifdef GIO_HAVE_LIBDEFLATE
+    return "libdeflate";
+#else
+    return "zlib";
 #endif
 }
 

@@ -22,7 +22,8 @@ TEST_DATA = "/root/reference/src/pipeline/test-data"
 
 
 @pytest.fixture(scope="module")
-def built_index(tmp_path_factory):
+def built_index(tmp_path_factory, require_files):
+    require_files(TEST_DATA)
     tmp_path = tmp_path_factory.mktemp("idx-advice")
     info = Info(
         kmer_size=51,

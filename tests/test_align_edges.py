@@ -18,7 +18,8 @@ FASTQ = f"{TEST_DATA}/test-reads-OXA90-OXA106-100bp-with-errors.fastq"
 
 
 @pytest.fixture(scope="module")
-def oxa_index(tmp_path_factory):
+def oxa_index(tmp_path_factory, require_files):
+    require_files(TEST_DATA)
     tmp = tmp_path_factory.mktemp("edges-idx")
     info = Info(
         kmer_size=51, sketch_size=30, window_size=100,

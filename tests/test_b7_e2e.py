@@ -24,7 +24,8 @@ DB_TAR = "/root/reference/db/clustered-ARG-databases/1.1/arg-annot.90.tar"
 
 
 @pytest.fixture(scope="module")
-def msa_subset(tmp_path_factory):
+def msa_subset(tmp_path_factory, require_files):
+    require_files(DB_TAR, READS)
     tmp = tmp_path_factory.mktemp("argannot")
     with tarfile.open(DB_TAR) as tar:
         tar.extractall(tmp, filter="data")

@@ -11,7 +11,8 @@ from groot_tpu.get import get_database
 DB_DIR = "/root/reference/db/clustered-ARG-databases/1.1"
 
 
-def test_get_from_local_source(tmp_path):
+def test_get_from_local_source(tmp_path, require_files):
+    require_files(DB_DIR)
     out = get_database(
         "arg-annot", "90", str(tmp_path), source=DB_DIR
     )

@@ -76,7 +76,8 @@ def _canonical_bam_sha(bam_path: str) -> str:
 
 
 @pytest.fixture(scope="module")
-def b7_index(tmp_path_factory):
+def b7_index(tmp_path_factory, require_files):
+    require_files(DB_TAR, B7_READS)
     tmp = tmp_path_factory.mktemp("golden-b7")
     with tarfile.open(DB_TAR) as tar:
         tar.extractall(tmp, filter="data")
@@ -126,7 +127,8 @@ def test_b7_golden(b7_index, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def full_index(tmp_path_factory):
+def full_index(tmp_path_factory, require_files):
+    require_files(DB_TAR, ACC_READS)
     tmp = tmp_path_factory.mktemp("golden-full")
     with tarfile.open(DB_TAR) as tar:
         tar.extractall(tmp, filter="data")

@@ -26,9 +26,10 @@ BLA_B10 = (
 )
 
 
-def test_load_reference_gfa_fixture():
+def test_load_reference_gfa_fixture(require_files):
     """Parity with TestCreateGrootGraph (graph_test.go:58-67) and with the
     known blaB-10 linear sequence."""
+    require_files(TEST_GFA)
     g = parse_gfa(TEST_GFA)
     assert len(g.segments) == 133
     assert len(g.links) == 176
@@ -45,7 +46,8 @@ def test_load_reference_gfa_fixture():
         assert graph.lengths[pid] == sum(seg_len[s] for s in p.segment_names)
 
 
-def test_toposort_respects_path_order():
+def test_toposort_respects_path_order(require_files):
+    require_files(TEST_GFA)
     g = parse_gfa(TEST_GFA)
     graph = GrootGraph.from_gfa(g, 1)
     # every path must traverse nodes in sorted-node order with correct
@@ -59,9 +61,10 @@ def test_toposort_respects_path_order():
         assert pos == graph.lengths[pid]
 
 
-def test_msa_to_gfa_roundtrip_sequences():
+def test_msa_to_gfa_roundtrip_sequences(require_files):
     """The degap invariant: every path's concatenated segments equal the
     ungapped MSA row."""
+    require_files(TEST_MSA)
     rows = read_msa(TEST_MSA)
     g = msa_to_gfa(rows)
     # consensus dropped
@@ -96,7 +99,8 @@ def test_msa_to_gfa_gap_blocks():
     assert by_name["s2"] == b"AAATTTT"
 
 
-def test_gfa_write_parse_roundtrip():
+def test_gfa_write_parse_roundtrip(require_files):
+    require_files(TEST_MSA)
     rows = read_msa(TEST_MSA)
     g = msa_to_gfa(rows)
     text = write_gfa(g)
@@ -107,7 +111,8 @@ def test_gfa_write_parse_roundtrip():
     ]
 
 
-def test_big_msa_builds():
+def test_big_msa_builds(require_files):
+    require_files(TEST_GENES_MSA)
     rows = read_msa(TEST_GENES_MSA)
     g = msa_to_gfa(rows)
     graph = GrootGraph.from_gfa(g, 0)

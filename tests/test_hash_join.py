@@ -18,7 +18,8 @@ OXA90 = "argannot~~~(Bla)OXA-90~~~EU547443:1-825"
 
 
 @pytest.fixture(scope="module")
-def built_index(tmp_path_factory):
+def built_index(tmp_path_factory, require_files):
+    require_files(TEST_DATA)
     tmp_path = tmp_path_factory.mktemp("idx")
     info = Info(
         kmer_size=51,

@@ -33,8 +33,9 @@ def test_window_sketches_match_per_window_golden():
             assert (got[i, start] == golden).all(), (i, start)
 
 
-def test_sketch_graph_windows():
+def test_sketch_graph_windows(require_files):
     """WindowGraph parity checks on the MOX fixture (graph_test.go:75-96)."""
+    require_files(TEST_MSA)
     graph = build_graph()
     w, k, s = 150, 7, 32
     lookup = sketch_graph(graph, w, k, s)
@@ -84,7 +85,8 @@ def test_tail_run_dropped():
         assert n_emitted == 1
 
 
-def test_lsh_query_finds_exact_windows():
+def test_lsh_query_finds_exact_windows(require_files):
+    require_files(TEST_MSA)
     graph = build_graph()
     w, k, s = 100, 31, 21
     lookup = sketch_graph(graph, w, k, s)
@@ -131,7 +133,8 @@ def test_lsh_query_finds_exact_windows():
     assert res_rand[0] == {}
 
 
-def test_index_serialisation_roundtrip(tmp_path):
+def test_index_serialisation_roundtrip(tmp_path, require_files):
+    require_files(TEST_MSA)
     graph = build_graph()
     w, k, s = 100, 31, 21
     lookup = sketch_graph(graph, w, k, s)
@@ -265,8 +268,10 @@ def test_blocked_device_sketching_stitches_runs(monkeypatch):
 
 
 def test_device_sketch_selfcheck_falls_back(monkeypatch):
-    """A failing golden self-check must reroute the device path to the
-    numpy fallback (never trust a miscompiling backend silently)."""
+    """A failing golden self-check must stop a device-sketched build with
+    an error (never trust an unverified kernel silently, and never fall
+    back to the host behind the caller's back); the host build of the same
+    graph still works."""
     from groot_tpu.index import window as win_mod
 
     w, k, s = 100, 31, 16
@@ -279,13 +284,11 @@ def test_device_sketch_selfcheck_falls_back(monkeypatch):
         win_mod, "_device_sketch_selfcheck", lambda *a: False
     )
     g1 = GrootGraph.from_gfa(gfa, 7)
-    res_fb = win_mod.sketch_graphs([g1], w, k, s)[0]
+    with pytest.raises(RuntimeError, match="self-check"):
+        win_mod.sketch_graphs([g1], w, k, s)
 
     monkeypatch.delenv("GROOT_DEVICE_SKETCH")
     g2 = GrootGraph.from_gfa(gfa, 7)
     res_host = win_mod.sketch_graphs([g2], w, k, s)[0]
-    assert set(res_fb) == set(res_host)
-    for ks in res_host:
-        for kd, kh in zip(res_fb[ks], res_host[ks]):
-            assert (kd.sketch == kh.sketch).all()
-            assert kd.merge_span == kh.merge_span
+    assert g2.num_distinct_sketches == sum(len(v) for v in res_host.values())
+    assert g2.num_distinct_sketches > 0

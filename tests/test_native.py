@@ -20,7 +20,8 @@ def test_native_builds():
     assert native.available(), "native lib should build in this image"
 
 
-def test_parse_matches_python():
+def test_parse_matches_python(require_files):
+    require_files(FASTQ)
     buf = open(FASTQ, "rb").read()
     io_, il, so, sl, qo, ql, consumed = native.parse_fastq_buffer(buf)
     reads = list(stream_fastq([FASTQ]))
@@ -37,7 +38,8 @@ def test_parse_matches_python():
         assert (a == b).all()
 
 
-def test_parse_partial_record():
+def test_parse_partial_record(require_files):
+    require_files(FASTQ)
     buf = open(FASTQ, "rb").read()
     cut = buf[: len(buf) - 37]  # truncate mid-record
     io_, *_rest, consumed = native.parse_fastq_buffer(cut)
@@ -154,10 +156,8 @@ def test_sketch_slot0_prescreen_exact():
     ).all()
 
 
-def test_gunzip_whole_file_matches_zlib():
-    data = open(
-        "/root/reference/testing/data/bla-b7-150bp-5x.fq", "rb"
-    ).read()
+def test_gunzip_whole_file_matches_zlib(synth_data):
+    data = open(synth_data.dense_fastq, "rb").read()
     gz = gzip.compress(data)
     raw = native.gunzip(gz)
     if raw is None:  # built without libdeflate
@@ -169,15 +169,15 @@ def test_gunzip_whole_file_matches_zlib():
     assert native.gunzip(b"\x1f\x8b" + b"\x00" * 64) is None
 
 
-def test_batch_reads_native_gz_paths_agree(tmp_path, monkeypatch):
+def test_batch_reads_native_gz_paths_agree(tmp_path, monkeypatch,
+                                           synth_data):
     """The three .gz ingest routes (native whole-file gunzip, streaming
     zlib fallback, plain file) must produce identical batches."""
     import numpy as np
 
     from groot_tpu.pipeline.align_pipeline import batch_reads_native
 
-    src = "/root/reference/testing/data/bla-b7-150bp-5x.fq"
-    data = open(src, "rb").read()
+    data = open(synth_data.dense_fastq, "rb").read()
     plain = tmp_path / "r.fq"
     plain.write_bytes(data)
     gz = tmp_path / "r.fq.gz"

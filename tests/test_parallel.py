@@ -96,7 +96,7 @@ def test_full_equality_device_query_matches_host(tiny):
     """The exact full-equality device mode (t=0.99) must reproduce the host
     query's hit set read-for-read — no per-band candidate cap, integer
     all-slot verification, float64 containment cutoff."""
-    from groot_tpu.ops.pallas_sketch import sketch_reads
+    from groot_tpu.ops.sketch import sketch_reads
 
     info, index, dev, codes, lengths = tiny
     win, contain, node_w, graph_k, mapped, dropped = align_step(

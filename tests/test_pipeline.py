@@ -34,7 +34,8 @@ def make_info(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def built_index(tmp_path_factory):
+def built_index(tmp_path_factory, require_files):
+    require_files(TEST_DATA)
     tmp_path = tmp_path_factory.mktemp("idx")
     info = make_info(tmp_path)
     run_index(info, TEST_DATA)

@@ -31,11 +31,12 @@ READS = (
 
 
 @pytest.fixture(scope="module")
-def full_index(tmp_path_factory):
+def full_index(tmp_path_factory, require_files):
     """A ~40-cluster subset of arg-annot.90 (the full index's unfolded
     device table is 2.3 GB — too heavy for the CPU-backend test run);
     reads from other clusters simply don't map, and hundreds still do,
     across the whole length mix."""
+    require_files(DB_TAR, READS)
     import shutil
 
     tmp = tmp_path_factory.mktemp("vrl-idx")

@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Microbenchmark of gather/slice forms on the current backend.
 
-The v6 cascade is gather-bound; TPU gather throughput varies ~1000x by
-form. This tool times the candidate forms so the kernel can be built on
-measurements, not folklore:
+The device cascade (align/device_join.py) is gather-bound, and gather
+throughput varies by orders of magnitude with its form. This tool times the
+candidate forms on the current backend so the kernel is built on
+measurements:
 
   scalar     x[idx] with idx i32 [N]            (arbitrary single elements)
   rowgather  T[idx] with T [R, W], idx [N]      (whole-row gathers)
@@ -42,10 +43,11 @@ def main() -> int:
     import numpy as np
     from jax import lax
 
-    cache = os.path.expanduser("~/.cache/groot_tpu/jax")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    print(f"# backend {jax.default_backend()}", flush=True)
+    from groot_tpu import compile_cache
+
+    compile_cache.enable()
+    d = jax.devices()[0]
+    print(f"# backend {d.platform} {d.device_kind}", flush=True)
 
     rng = np.random.default_rng(0)
     F = 4_000_000
@@ -90,12 +92,10 @@ def main() -> int:
         print(f"row gather n={n:>9,} W={W}: {dt*1e3:8.1f} ms "
               f"({n*W/dt/1e6:8.1f} M elem/s)", flush=True)
 
-    # round-5 findings, reproducible (TUNNEL.md "gather lowering cliff"
-    # + "gather floor"): (a) only a slice EXACTLY as wide as the table
-    # row hits the fast path — any narrower slice is ~7x slower; (b) the
-    # fast path costs a FIXED ~0.2 us/row regardless of table size,
-    # locality (sequential == random) or alignment, so kernels built on
-    # row gathers are row-count-bound, not byte-bound.
+    # the seed scan's row-gather form (_row_gather) at T1-like widths:
+    # full-width rows (the form the kernel uses), random against
+    # sequential rows, and a narrower slice of the same table — whether
+    # the width or the row count bounds the gather on this backend
     from groot_tpu.align.device_join import _row_gather
 
     Rb, Wb = 1_500_000, 377

@@ -97,7 +97,7 @@ def worker(proc_id: int, num_procs: int, out_path: str) -> int:
         from groot_tpu.align.batch_host import (
             WeightAccumulator, WindowTables, sort_hits,
         )
-        from groot_tpu.ops.pallas_sketch import sketch_reads, sketch_reads_u64
+        from groot_tpu.ops.sketch import sketch_reads, sketch_reads_u64
 
         tables = WindowTables(index, info.store)
         acc = WeightAccumulator(tables)

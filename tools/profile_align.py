@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Per-phase profiling of the align hot path on the cached bench index.
+"""Per-phase profiling of the host align hot path on the bench data
+(bench.ensure_data: the seeded arg-annot.90-shaped index and dense reads).
 
 Phases per batch (explicit device syncs so time attributes correctly):
   ingest | sketch | lsh-query | host-sort | cascade-submit (packing) |
@@ -16,15 +17,13 @@ sys.path.insert(0, REPO)
 import numpy as np
 
 CACHE = os.path.join(REPO, ".bench")
-READS = "/root/reference/testing/data/argannot-150bp-10000-reads.fq.gz"
 
 
 def main():
-    import jax
+    from bench import ensure_data
+    from groot_tpu import compile_cache
 
-    cache_dir = os.path.expanduser("~/.cache/groot_tpu/jax")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    compile_cache.enable()
 
     from groot_tpu.config import AlignCmd, Info
     from groot_tpu.index.lshe import ContainmentIndex
@@ -40,9 +39,10 @@ def main():
         sort_hits,
     )
     from groot_tpu.align.hash_join import HashAligner
-    from groot_tpu.ops.pallas_sketch import sketch_reads
+    from groot_tpu.ops.sketch import sketch_reads
 
-    index_dir = os.path.join(CACHE, "arg-annot.90-w150-k31-s20")
+    index_dir, ds = ensure_data(0)
+    READS = ds.dense_fastq
     t0 = time.time()
     info = Info.load(os.path.join(index_dir, "groot.gg"))
     info.attach_db(ContainmentIndex.load(os.path.join(index_dir, "groot.lshe")))
@@ -74,7 +74,6 @@ def main():
             if batch.n < batch_size:
                 _pad_batch(batch, batch_size, k)
             hi, lo = sketch_reads(batch.codes, batch.lengths, k, s)
-            hi.block_until_ready()
             t1 = time.time()
             kmer_counts = (batch.lengths - k + 1).astype(np.int32)
             rows, wins = info.db.query_batch_np(hi, lo, kmer_counts, t)
